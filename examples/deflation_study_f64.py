@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""f64 deflation study at benchmark scale (VERDICT round-2 item 10).
+"""f64 deflation study at benchmark scale.
 
 Separates ALGORITHM from f32 PRECISION in the remaining het-LORASC
-iteration gap (TPU f32: ~166-169 iters at defl≈256-capped vs the
+iteration gap (f32: ~166-169 iters at defl≈256-capped vs the
 reference's ~102-at-16-procs regime, BASELINE.md Table 4): runs the
 scalable LORASC build + solve in float64 on the CPU backend at the
 benchmark size and sweeps max_deflation, printing one row per config:
@@ -37,15 +37,7 @@ def main():
     defls = ([int(x) for x in sys.argv[2].split(",")]
              if len(sys.argv) > 2 else [64, 128, 256, 512])
     t0 = time.time()
-    import scipy.sparse as sp
-
-    cache = f"/tmp/prealps_ela_{nel}_1.npz"
-    if os.path.exists(cache):
-        d = np.load(cache)
-        a = sp.csr_matrix((d["data"], d["indices"], d["indptr"]),
-                          shape=tuple(d["shape"]))
-    else:
-        a = elasticity3d(nel, nel, nel, heterogeneous=True)
+    a = elasticity3d(nel, nel, nel, heterogeneous=True)
     n = a.shape[0]
     print(f"# n={n} nnz={a.nnz} heterogeneous f64 cpu ({time.time()-t0:.0f}s)",
           flush=True)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Large-separator distributed LORASC demo (VERDICT round-2 item 5).
+"""Large-separator distributed LORASC demo.
 
 Builds and solves with the GENERAL distributed LORASC driver
 (parallel/lorasc_driver.py) on a problem whose separator exceeds 17k rows

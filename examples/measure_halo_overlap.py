@@ -1,14 +1,14 @@
 #!/usr/bin/env python
-"""Halo-exchange / compute overlap measurement (VERDICT round-2 item 6).
+"""Halo-exchange / compute overlap measurement.
 
 The reference's distributed SpMM ISends the X panel, computes the
 diagonal-block SpMM while the messages fly, then accumulates per-arrival
-(reference: utils/cplm_v0/cplm_v0_matmult_v2.c:184-321). The TPU-native
+(reference: utils/cplm_v0/cplm_v0_matmult_v2.c:184-321). The JAX
 equivalent issues the ring ppermute and the local stencil compute in one
 jitted program and leaves the interleaving to XLA. This script MEASURES how
 much overlap XLA actually achieves, by timing three variants of one
-distributed SpMM step on the 8-virtual-device CPU mesh (and on a real
-multi-chip slice when one is available):
+distributed SpMM step on the 8-virtual-device CPU mesh (or on real GPUs
+with OVERLAP_ON_GPU=1):
 
     full     = halo ppermute + local SpMM on the extended panel
     compute  = local SpMM only (halos = own wrap slices, no collective)
@@ -17,8 +17,7 @@ multi-chip slice when one is available):
 overlap efficiency = (compute + halo - full) / min(compute, halo)
     1.0 -> perfectly hidden; 0.0 -> fully serialized.
 
-Timing: lax.scan chains inside ONE dispatch, two lengths differenced
-(docs/PERFORMANCE.md round-3 methodology).
+Timing: lax.scan chains inside ONE dispatch, two lengths differenced.
 """
 import functools
 import os
@@ -32,9 +31,9 @@ def main():
     import jax
 
     n_dev = int(os.environ.get("OVERLAP_NDEV", "8"))
-    # OVERLAP_ON_TPU=1 runs on a real multi-chip slice (n_dev real chips);
-    # default: n_dev virtual CPU devices (config must precede backend init)
-    if not int(os.environ.get("OVERLAP_ON_TPU", "0")):
+    # OVERLAP_ON_GPU=1 runs on n_dev real GPUs; default: n_dev virtual CPU
+    # devices (config must precede backend init)
+    if not int(os.environ.get("OVERLAP_ON_GPU", "0")):
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_num_cpu_devices", n_dev)
     import jax.numpy as jnp
@@ -54,14 +53,15 @@ def main():
     )
     from prealps_tpu.core.scaling import sym_rac_scaling
     from prealps_tpu.ops.formats import csr_to_stencil_bsr_t
-    from prealps_tpu.ops.spmm import stencil_scan_accumulate
+    from prealps_tpu.config import solve_dtype
+    from prealps_tpu.ops.spmm import stencil_spmm_ext
 
     nel = int(os.environ.get("OVERLAP_NEL", "24"))
     t = 12
     br = 3
     a = elasticity3d(nel, nel, nel)
     a, _ = sym_rac_scaling(a)
-    dtype = np.float32 if jax.default_backend() == "tpu" else np.float64
+    dtype = solve_dtype()   # f32 on the GPU, f64 on the CPU
     lay = contiguous_row_layout(a.shape[0], n_dev, row_multiple=br * n_dev)
     apad = permute_and_pad_matrix(a, lay)
     sb = csr_to_stencil_bsr_t(apad, br=br, dtype=dtype)
@@ -85,12 +85,12 @@ def main():
         left = jax.lax.ppermute(x_loc[:, :, nrb_loc - halo:], "shards", fwd)
         right = jax.lax.ppermute(x_loc[:, :, :halo], "shards", bwd)
         x_ext = jnp.concatenate([left, x_loc, right], axis=2)
-        return stencil_scan_accumulate(b_loc, sb.offsets, x_ext, halo)
+        return stencil_spmm_ext(b_loc, sb.offsets, x_ext, halo)
 
     def step_compute(b_loc, x_loc):
         x_ext = jnp.concatenate(
             [x_loc[:, :, nrb_loc - halo:], x_loc, x_loc[:, :, :halo]], axis=2)
-        return stencil_scan_accumulate(b_loc, sb.offsets, x_ext, halo)
+        return stencil_spmm_ext(b_loc, sb.offsets, x_ext, halo)
 
     def step_halo(b_loc, x_loc):
         left = jax.lax.ppermute(x_loc[:, :, nrb_loc - halo:], "shards", fwd)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Multi-process (DCN-analog) launch recipe: the distributed LORASC solver
+"""Multi-process (cross-host analog) launch recipe: the distributed LORASC solver
 across N OS processes under `jax.distributed`.
 
 The reference scales across nodes with `mpirun -np N test_lorasc ...`
@@ -13,7 +13,7 @@ Parent: picks a free coordinator port, spawns N worker copies of ITSELF.
 Worker: initializes the distributed runtime, builds DistributedLorascECG
 on the cross-process ("shards","local") mesh — operand globalization is
 automatic (parallel/multihost.py globalize_operands) — solves, and checks
-the true residual. On a real pod, run one copy per host with --pid set by
+the true residual. On a real cluster, run one copy per host with --pid set by
 the launcher (or rely on cluster auto-detection and drop the flags).
 """
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Weak-scaling sweep of the distributed ECG solve, with a comm/compute split.
 
-(BASELINE.md north star: ≥70% weak-scaling efficiency on a v5e-16.) Grows the
-problem with the shard count (constant rows/shard) and reports, per row:
+Grows the problem with the shard count (constant rows/shard) and reports,
+per row:
 
 - ``iter_ms``     measured per-iteration wall time of the REAL distributed
                   solve (wall / iters at tol=1e-30, warm),
@@ -23,9 +23,9 @@ problem with the shard count (constant rows/shard) and reports, per row:
                   not communication.
 
 On a host CPU the virtual devices SHARE physical cores, so wall-clock weak
-efficiency conflates starvation with comm overhead (VERDICT r4 weak #2); the
-comm-side number (1 - comm_frac) is the one comparable to the ≥0.70 target.
-On a real multi-chip slice the same script measures true ICI scaling.
+efficiency conflates starvation with comm overhead; the comm-side number
+(1 - comm_frac) is the one to read there. On real GPUs the same script
+measures interconnect scaling.
 
 Usage: python examples/weak_scaling.py [--base-nel 8] [--shards 1,2,4]
 """
@@ -41,17 +41,12 @@ import numpy as np
 
 def _scan_ms(fn_builder, mesh, in_specs, state, lens=(8, 24), reps=2):
     """Scan-differential: jit fn(state, length) under shard_map at two scan
-    lengths, difference the best wall times (docs/PERFORMANCE.md round 3:
-    repeated identical dispatches are elided by some runtimes and the
-    per-dispatch constant otherwise inflates short chains)."""
+    lengths, difference the best wall times (the per-dispatch constant
+    otherwise inflates short chains)."""
     import jax
 
     def _sync(o):
-        # force completion with a tiny D2H fetch: block_until_ready can
-        # return early on remote-attach runtimes (constant fetch latency
-        # cancels in the two-length differential)
-        leaf = o[0] if isinstance(o, tuple) else o
-        float(np.asarray(jax.device_get(leaf.ravel()[0])))
+        jax.block_until_ready(o)
         return o
 
     timed = {}
@@ -77,7 +72,7 @@ def main():
     ap.add_argument("--maxiter", type=int, default=60)
     ap.add_argument("--cpu", action="store_true",
                     help="force the 8-virtual-device CPU mesh (e.g. when "
-                         "no TPU is attached)")
+                         "no GPU is attached)")
     args = ap.parse_args()
 
     import jax
@@ -98,12 +93,13 @@ def main():
     from prealps_tpu.core.generators import elasticity3d
     from prealps_tpu.core.layout import permute_and_pad_matrix
     from prealps_tpu.ops.formats import csr_to_stencil_bsr_t
-    from prealps_tpu.ops.spmm import stencil_scan_accumulate
+    from prealps_tpu.config import solve_dtype
+    from prealps_tpu.ops.spmm import stencil_spmm_ext
     from prealps_tpu.parallel.driver import AXIS, DistributedECG
     from prealps_tpu.solvers import ECGOptions
 
     platform = jax.devices()[0].platform
-    dtype = np.float32 if platform == "tpu" else np.float64
+    dtype = solve_dtype()   # f32 on the GPU, f64 on the CPU
     rng = np.random.default_rng(0)
     t, deg = args.t, args.cheb_degree
     local_base_ms = None
@@ -208,7 +204,7 @@ def main():
                     for _ in range(deg + 1):
                         x_ext = jnp.concatenate(
                             [x[:, :, -halo:], x, x[:, :, :halo]], axis=2)
-                        x = stencil_scan_accumulate(
+                        x = stencil_spmm_ext(
                             blocks, offsets, x_ext, halo)
                         x = x / jnp.sqrt(jnp.mean(x * x) + 1.0)
                     g = jnp.einsum("abn,cbn->ac", x, x)

@@ -1,4 +1,4 @@
-"""prealps_tpu — TPU-native communication-avoiding enlarged-Krylov solvers.
+"""prealps_tpu — communication-avoiding enlarged-Krylov solvers in JAX.
 
 A brand-new JAX/XLA/Pallas framework with the capabilities of NLAFET/preAlps
 (reference: /root/reference): the ECG solver (Enlarged Conjugate Gradient,
@@ -6,7 +6,7 @@ orthomin / orthodir / fused single-reduction variants with dynamic
 search-direction reduction), block-Jacobi and LORASC / PRESC Schur-complement
 preconditioners, distributed row-partitioned SpMM, and the supporting host
 toolchain (MatrixMarket IO, symmetric scaling, graph partitioning, block-arrow
-layouts) — re-designed TPU-first rather than ported.
+layouts) — re-designed for accelerators rather than ported.
 
 Layer map (mirrors SURVEY.md §1 of the reference analysis):
   solvers/    ECG (reference: src/solvers/ecg.c)

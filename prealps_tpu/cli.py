@@ -17,16 +17,14 @@ import numpy as np
 
 
 def _resolve_layout(args):
-    """Default layout: the lane-major fast path on TPU where the format
-    supports it, row-major elsewhere."""
+    """Default layout from the platform policy (config.panel_layout)."""
     if args.layout is not None:
         return args.layout
     if args.fmt == "auto":
         return "nt"   # the driver re-resolves layout to match the detected fmt
-    import jax
+    from prealps_tpu.config import panel_layout
 
-    on_tpu = jax.devices()[0].platform == "tpu"
-    return "tbn" if (on_tpu and args.fmt in ("stencil", "dia")) else "nt"
+    return panel_layout(args.fmt, getattr(args, "precond", None))
 
 
 def _load_matrix(args):
@@ -93,15 +91,17 @@ def _common_parser(desc):
     p.add_argument("-i", "--maxiter", type=int, default=10000)
     p.add_argument("--nshards", type=int, default=1)
     p.add_argument("--fmt", default="auto",
-                   choices=["auto", "ell", "dia", "stencil", "block_ell",
-                            "block_ell_xla"],
+                   choices=["auto", "ell", "dia", "stencil", "block_ell"],
                    help="matrix storage format; auto (default) detects the "
                         "fastest structure (stencil → DIA → Morton-clustered "
                         "block-ELL → ELL) and logs the choice")
     p.add_argument("--layout", default=None, choices=[None, "nt", "tbn"],
-                   help="panel layout (tbn = lane-major TPU fast path; "
-                        "default: tbn on TPU for stencil/dia, nt otherwise)")
-    p.add_argument("--dtype", default=None, choices=[None, "f32", "f64"])
+                   help="panel layout (tbn = lane-major stencil path; "
+                        "default: tbn on the GPU for stencil/dia, nt "
+                        "otherwise)")
+    p.add_argument("--dtype", default=None, choices=[None, "f32", "f64"],
+                   help="working precision (default: f32 + refinement on "
+                        "the GPU, f64 on the CPU)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--rhs", help="right-hand-side vector file (one value per "
                    "line, '%%' comments; reference: operator.c:136 RHSBuild "
@@ -122,17 +122,11 @@ def _common_parser(desc):
 
 
 def _dtype_of(args):
-    """Resolve the run dtype and make sure jax can actually honor it
-    (f64 silently degrades to f32 unless x64 is enabled)."""
-    import jax
+    """Resolve the run dtype from the platform policy (config.solve_dtype),
+    which also enables x64 when the answer is f64."""
+    from prealps_tpu.config import solve_dtype
 
-    on_tpu = jax.devices()[0].platform == "tpu"
-    if args.dtype == "f32":
-        return np.float32
-    if args.dtype == "f64" or not on_tpu:
-        jax.config.update("jax_enable_x64", True)
-        return np.float64
-    return np.float32
+    return solve_dtype(args.dtype)
 
 
 def _report(args, a, b, x, info, wall):
@@ -169,8 +163,11 @@ def ecg_main(argv=None):
                         "layout=tbn)")
     args = p.parse_args(argv)
 
+    from prealps_tpu.config import init_compile_cache
     from prealps_tpu.parallel.driver import DistributedECG
     from prealps_tpu.solvers import ECGOptions
+
+    init_compile_cache()
 
     a = _load_matrix(args)
     b = _load_rhs(args, a.shape[0])
@@ -247,19 +244,19 @@ def lorasc_main(argv=None):
                    "distributed builds): sigma = reference E σ Eᵀ "
                    "(lorasc_eigsolve.c:247); deflate = balancing/BNN "
                    "projection over the harmonic lift — f32-robust, pair "
-                   "with -o omin on high-contrast problems "
-                   "(docs/PERFORMANCE.md round-3 continuation)")
+                   "with -o omin on high-contrast problems")
     p.add_argument("--factor-store", default=None,
                    choices=[None, "auto", "f32", "bf16"],
                    help="storage dtype of the banded factors the apply "
-                   "streams (--scalable path): auto (default) = bf16 for "
-                   "f32 TPU builds with --correction deflate, else f32 — "
-                   "the measured safe/fast split (docs/PERFORMANCE.md "
-                   "round-4 bf16 reconciliation)")
+                   "streams (--scalable path): auto (default) = f32; bf16 "
+                   "halves the stream of f32 builds")
     args = p.parse_args(argv)
 
     from prealps_tpu.api import ECGSolver
+    from prealps_tpu.config import init_compile_cache
     from prealps_tpu.solvers import ECGOptions
+
+    init_compile_cache()
 
     a = _load_matrix(args)
     b = _load_rhs(args, a.shape[0])
@@ -348,8 +345,9 @@ def bench_main(argv=None):
                     "on stderr.",
         epilog="Knobs (env): PREALPS_BENCH_FAST=1 headline only; "
                "PREALPS_BENCH_SKIP_HET / _SKIP_PRESC / _SKIP_IRR skip "
-               "sections; PREALPS_BENCH_NEL/T/TOL/BJ/PRECOND/HET/FMT, "
-               "PREALPS_STENCIL_IMPL select the configuration.")
+               "sections; PREALPS_BENCH_NEL/T/TOL/BJ/PRECOND/HET/FMT "
+               "select the configuration; PREALPS_BENCH_CPU=1 rehearses "
+               "on the CPU.")
     p.add_argument("--fast", action="store_true",
                    help="headline record only (PREALPS_BENCH_FAST=1)")
     args = p.parse_args(argv)

@@ -6,7 +6,7 @@ GetColBlockPos/GetCommDep): a RowLayout records the partition-derived
 permutation, per-shard row ranges (equalised by padding so shard_map sees
 static shapes), and the block-column dependency sets used for halo exchange.
 
-TPU-first difference vs the reference: ranks own *equal-size padded* row
+Difference vs the reference: ranks own *equal-size padded* row
 panels (static shapes for XLA) instead of exact METIS part sizes; the padded
 tail rows carry an identity diagonal so the operator stays SPD and the
 padded solution entries are exactly zero.
@@ -55,7 +55,7 @@ def _padded_perm_offsets(part: np.ndarray, nshards: int, row_multiple: int = 8):
     global tail. To keep every shard's *own* rows contiguous AND equal-sized,
     we interleave padding rows per shard: shard s owns permuted-global rows
     [s*rps, (s+1)*rps), the first count[s] of which are real. rows_per_shard
-    is rounded up to row_multiple (8 = f32 sublane) so device block formats
+    is rounded up to row_multiple (8 by default) so device block formats
     tile cleanly.
     """
     counts = np.bincount(part, minlength=nshards)
@@ -183,11 +183,11 @@ def contiguous_row_layout(n: int, nshards: int, row_multiple: int = 8) -> RowLay
 class HaloPlan:
     """Static neighbor-exchange schedule for the distributed ELL SpMM.
 
-    The TPU-native analog of the reference's dep-list halo exchange
+    The analog of the reference's dep-list halo exchange
     (reference: utils/cplm_v0/cplm_v0_matmult_v2.c:14-343 precomputed sub-CSR
     windows + ISend/Irecv; deps from cplm_v0_matcsr.c:234 GetCommDep): each
     shard packs exactly the boundary rows of X its neighbors reference
-    (send_idx), one `all_to_all` moves all packs over ICI, and the local ELL
+    (send_idx), one `all_to_all` moves all packs, and the local ELL
     columns are pre-remapped into [own rows ∥ halo buffer] coordinates —
     comm volume ∝ cut edges instead of the full panel.
     """

@@ -373,7 +373,7 @@ def morton_perm(coords: np.ndarray, bits: int = 10) -> np.ndarray:
     Interleaving the quantized coordinate bits keeps geometrically-near rows
     adjacent, so fixed-size row/column blocks of the permuted matrix have a
     high fill ratio — the amortization that beats the per-row gather-rate
-    ceiling of plain ELL on TPU (docs/PERFORMANCE.md general-SpMM study).
+    ceiling of plain ELL.
     """
     q = np.asarray(coords, dtype=np.float64)
     if q.ndim == 1:

@@ -3,7 +3,7 @@
 The reference factors each subdomain's sparse diagonal block with a serial
 sparse direct solver (reference: src/preconditioners/block_jacobi.c:48-58,
 utils/mkl_pardiso_solver.c:95-141, and LORASC's Aii factorization at
-src/preconditioners/lorasc.c:222-243). A TPU has no PARDISO; the round-1
+src/preconditioners/lorasc.c:222-243). JAX has no PARDISO; the round-1
 answer (densify + batched dense Cholesky) capped blocks at ~1-2k rows.
 
 This module lifts that cap: after a (host-side) bandwidth-reducing ordering,
@@ -15,12 +15,12 @@ block-tridiagonal with bs×bs blocks:
         [      E_2  D_2   ...  ]     E_i subdiagonal coupling blocks.
 
 Factorization (batched over subdomains, lax.scan over the block index —
-nblk ≈ n/bs sequential steps of large batched MXU ops):
+nblk ≈ n/bs sequential steps of large batched matmuls):
 
     M_i = E_i L_{i-1}⁻ᵀ ;  S_i = D_i − M_i M_iᵀ ;  L_i = chol(S_i)
 
-storing L_i⁻¹ explicitly (triangular solves on TPU are slow for wide RHS —
-docs/PERFORMANCE.md — so solves become pure GEMMs):
+storing L_i⁻¹ explicitly (so solves become pure GEMMs instead of
+wide-RHS triangular solves):
 
     forward:   y_i = L_i⁻¹ (v_i − M_i y_{i-1})
     backward:  w_i = L_i⁻ᵀ (y_i − M_{i+1}ᵀ w_{i+1})
@@ -254,10 +254,8 @@ def block_banded_solve_t(
 ) -> jax.Array:
     """t-major variant of block_banded_solve: v3 (nblk, P, t, bs).
 
-    TPU tiles the minor two dims to (8, 128); the (…, bs, t) vector layout
-    puts t≈12 in the lane dim and physically moves ~10× its logical bytes
-    through every scan step. (…, t, bs) keeps bs in lanes (dense) and only
-    pads t to the next sublane multiple. Factors are unchanged — identical
+    (…, t, bs) keeps the long bs axis minor in every scan step instead of
+    t≈12. Factors are unchanged — identical
     math to block_banded_solve, different vector einsum orientation."""
     l_inv = jnp.swapaxes(fac.l_inv, 0, 1)   # (nblk, P, bs, bs)
     m_off = jnp.swapaxes(fac.m_off, 0, 1)
@@ -427,7 +425,7 @@ def block_banded_schur(
     block; callers order them last, the reference's
     permuteSchurComplementToBottom contract, preAlps_utils.c:1048).
 
-    This is the TPU-native partial factorization with Schur output —
+    This is the batched partial factorization with Schur output —
     the role MKL-PARDISO's iparm[35]=2 and MUMPS' listvar_schur play for
     PRESC (reference: mkl_pardiso_solver.c:131-141, mumps_solver.c:83-90,
     presc.c:239-241). Eliminating the leading blocks of a block-tridiagonal

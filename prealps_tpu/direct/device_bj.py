@@ -3,9 +3,9 @@
 The dense diagonal blocks a block-Jacobi preconditioner needs are
 submatrices of A — and A is already resident on the device in stencil-BSR
 form. Assembling the (nb, mb, mb) blocks on device from the stencil avoids
-shipping hundreds of MB of dense factors through the host (which is the
-dominant setup cost on remote-attached TPUs), and the factorization itself
-(batched Cholesky → explicit inverse) runs on the MXU.
+shipping hundreds of MB of dense factors from the host, and the
+factorization itself (batched Cholesky → explicit inverse) is batched GEMM
+work on the device.
 
 Index convention: lane-major throughout. Blocks are stored 5-D
 (nb, br, mbn, br, mbn) with node-local index minor, matching the (t, br, nrb)
@@ -16,11 +16,8 @@ panel layout, so the apply is one batched einsum with NO gathers/permutes:
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
 
 HIGHEST = jax.lax.Precision.HIGHEST
 
@@ -63,7 +60,7 @@ def batched_spd_inverse(dense5: jax.Array, method: str = "chol") -> jax.Array:
         inv = jnp.einsum("bki,bkj->bij", linv, linv, precision=HIGHEST)
     elif method == "newton":
         # Newton–Schulz: X_{k+1} = X_k (2I − A X_k); init guarantees
-        # convergence for SPD A. Pure batched GEMMs — MXU-friendly.
+        # convergence for SPD A. Pure batched GEMMs.
         norm1 = jnp.max(jnp.sum(jnp.abs(a), axis=2), axis=1)
         x = (a / (norm1 * norm1)[:, None, None]).transpose(0, 2, 1)
         eye2 = 2.0 * jnp.eye(mb, dtype=a.dtype)
@@ -82,17 +79,15 @@ def batched_spd_inverse(dense5: jax.Array, method: str = "chol") -> jax.Array:
 def bj_apply_lane_major(inv5: jax.Array, z: jax.Array) -> jax.Array:
     """z: (t, br, nrb) -> (t, br, nrb) with nrb = nb*mbn.
 
-    bf16-stored inverses run native bf16 MXU passes with f32 accumulation
-    (measured vs 1.51 ms f32 at n=148k/mb=1008: the apply is HBM bound on
-    the inverse blocks, so halving their bytes nearly halves the time). The
-    0.3% matrix rounding is a FIXED SPD perturbation — preconditioner
-    quality unchanged. The INPUT must not be rounded the same way: a bare
-    z→bf16 cast makes the effective M nonlinear at ~4e-3, which breaks the
-    ECG orthogonalisation recurrences (measured 7× iteration blow-up).
-    Instead z is split into two bf16 pieces stacked on the t axis — B is
-    read ONCE, compute doubles (still MXU-cheap), and M̃ stays linear to
-    ~1e-6. Contrast: bf16 banded FACTORS stay rejected (triangular
-    substitution compounds the rounding, docs/PERFORMANCE.md)."""
+    bf16-stored inverses run bf16 products with f32 accumulation: the
+    apply is bandwidth bound on the inverse blocks, so halving their bytes
+    is the point. The 0.3% matrix rounding is a FIXED SPD perturbation —
+    preconditioner quality unchanged. The INPUT must not be rounded the
+    same way: a bare z→bf16 cast makes the effective M nonlinear at ~4e-3,
+    which breaks the ECG orthogonalisation recurrences (measured 7×
+    iteration blow-up). Instead z is split into two bf16 pieces stacked on
+    the t axis — B is read ONCE, compute doubles, and M̃ stays linear to
+    ~1e-6."""
     nb, br, mbn, _, _ = inv5.shape
     t = z.shape[0]
     zb = z.reshape(t, br, nb, mbn).transpose(0, 2, 1, 3)       # (t, nb, br, mbn)
@@ -111,10 +106,8 @@ def bj_apply_lane_major(inv5: jax.Array, z: jax.Array) -> jax.Array:
 def bj_apply_flat(inv_flat: jax.Array, z: jax.Array) -> jax.Array:
     """z: (t, br, nrb) -> (t, br, nrb) with FLAT (nb, mb, mb) inverses.
 
-    Same math as bj_apply_lane_major, but the flat dense-block layout tiles
-    TPU memory densely: the 5-D (…, br, mbn) form puts br=3 in a sublane
-    dim that pads to 8, physically amplifying the dominant HBM read of the
-    apply by 8/3 (measured ~0.79 ms -> ~0.4 ms at n=148k, mb=240 rows)."""
+    Same math as bj_apply_lane_major as one plain batched GEMM over
+    (nb, mb, mb) blocks."""
     nb, mb, _ = inv_flat.shape
     t, br, nrb = z.shape
     mbn = mb // br
@@ -141,68 +134,6 @@ def build_device_block_jacobi_flat(blocks_t, offsets, mbn: int,
 
 
 # ---------------------------------------------------------------------------
-# Pallas BJ apply: stream the inverse blocks through a BlockSpec pipeline
-# ---------------------------------------------------------------------------
-
-def pack_bj_dense(inv5: jax.Array) -> jax.Array:
-    """(nb, br, mbn, br, mbn) -> (nb, mbp, mbp) with mbp = mb rounded to 128.
-
-    One-time build step for bj_apply_pallas; zero padding is exact (padded z
-    rows are zero)."""
-    nb, br, mbn, _, _ = inv5.shape
-    mb = br * mbn
-    mbp = -(-mb // 128) * 128
-    b2 = inv5.reshape(nb, mb, mb)
-    return jnp.pad(b2, ((0, 0), (0, mbp - mb), (0, mbp - mb)))
-
-
-def _bj_pallas_kernel(b_ref, z_ref, o_ref):
-    o_ref[0] = jnp.dot(b_ref[0], z_ref[0],
-                       preferred_element_type=jnp.float32)
-
-
-@functools.partial(jax.jit, static_argnames=("br", "interpret", "rt"))
-def bj_apply_pallas(b2: jax.Array, z: jax.Array, br: int,
-                    interpret: bool = False, rt: int = 128) -> jax.Array:
-    """Block-Jacobi apply from pre-packed dense inverses via Pallas.
-
-    b2: (nb, mbp, mbp) from pack_bj_dense; z: (t, br, nrb) lane-major.
-    The XLA einsum runs the 600 MB inverse read at ~405 GB/s (1.51 ms at
-    n=148k); this kernel streams (128, mbp) row tiles straight into
-    (128, mbp)·(mbp, t) MXU dots — the skinny t panel stays VMEM-resident.
-    """
-    nb, mbp, _ = b2.shape
-    t = z.shape[0]
-    nrb = z.shape[2]
-    mbn = nrb // nb
-    mb = br * mbn
-    # (t, br, nrb) -> (nb, mbp, t); row index inside a block is m*mbn + s
-    zb = z.reshape(t, br, nb, mbn).transpose(2, 1, 3, 0).reshape(nb, mb, t)
-    if mbp != mb:
-        zb = jnp.pad(zb, ((0, 0), (0, mbp - mb), (0, 0)))
-    rt = min(rt, mbp)
-    rows = mbp // rt
-    out = pl.pallas_call(
-        _bj_pallas_kernel,
-        grid=(nb, rows),
-        in_specs=[
-            pl.BlockSpec((1, rt, mbp), lambda b, i: (b, i, 0)),
-            pl.BlockSpec((1, mbp, t), lambda b, i: (b, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, rt, t), lambda b, i: (b, i, 0)),
-        out_shape=jax.ShapeDtypeStruct((nb, mbp, t), z.dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nb * mbp * mbp * t,
-            bytes_accessed=b2.size * 4 + 2 * z.size * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(b2, zb)
-    w = out[:, :mb, :].reshape(nb, br, mbn, t).transpose(3, 1, 0, 2)
-    return w.reshape(t, br, nrb)
-
-
-# ---------------------------------------------------------------------------
 # Deduped block Jacobi: identical diagonal blocks stored (and READ) once
 # ---------------------------------------------------------------------------
 #
@@ -211,11 +142,11 @@ def bj_apply_pallas(b2: jax.Array, z: jax.Array, br: int,
 # diagonal blocks: with the block boundary aligned to a full grid z-slab
 # (mbn = nx*ny nodes), every interior slab assembles the SAME dense matrix —
 # symmetric RAC scaling preserves this (interior diagonals are constant).
-# Grouping bitwise-equal slabs turns the BJ apply from an HBM-bound read of
-# n·mb·4 bytes (600 MB at n=148k/mb=1008 — the LARGEST per-iteration kernel,
-# docs/PERFORMANCE.md) into ~4 unique-inverse reads + MXU GEMMs with a
-# 400-column batched panel. Measured: layered-het media dedupe too (period-2
-# slabs), and arbitrary matrices simply fall back (every slab unique).
+# Grouping bitwise-equal slabs turns the BJ apply from a bandwidth-bound read
+# of n·mb·4 bytes (600 MB at n=148k/mb=1008) into ~4 unique-inverse reads +
+# GEMMs with a 400-column batched panel. Layered-het media dedupe too
+# (period-2 slabs), and arbitrary matrices simply fall back (every slab
+# unique).
 
 
 def stencil_slab_groups(blocks_host, mbn: int):
@@ -263,8 +194,8 @@ def bj_apply_grouped(inv_u: jax.Array, groups, z: jax.Array) -> jax.Array:
     """z: (t, br, nrb) -> (t, br, nrb), reading each unique inverse ONCE.
 
     groups: static tuple of block-id tuples (from stencil_slab_groups). Each
-    group's members batch into one (mb × mb)·(mb × |g|·t) GEMM — MXU work on
-    a wide panel instead of an HBM stream of per-block copies."""
+    group's members batch into one (mb × mb)·(mb × |g|·t) GEMM on a wide
+    panel instead of a stream of per-block copies."""
     ng, br, mbn, _, _ = inv_u.shape
     t = z.shape[0]
     nrb = z.shape[2]
@@ -318,10 +249,8 @@ def csr_slab_groups(a_csr, rows_per_block: int):
 
 
 # Module-level jitted builders: a fresh jax.jit() wrapper per solver build
-# re-lowers and re-dispatches through the (remote) compile service on every
-# build — round-5 measured this class of overhead at ~7 s of the LORASC
-# build_exec (lorasc_scale._LANCZOS_FN_CACHE note). These persist for the
-# process, so warm rebuilds hit the jit cache directly.
+# re-lowers on every build (lorasc_scale._LANCZOS_FN_CACHE note). These
+# persist for the process, so warm rebuilds hit the jit cache directly.
 build_device_block_jacobi_jit = jax.jit(
     build_device_block_jacobi, static_argnames=("mbn", "method"))
 build_device_block_jacobi_flat_jit = jax.jit(

@@ -1,10 +1,10 @@
-"""Batched subdomain factorizations (the PARDISO/MUMPS role, TPU-native).
+"""Batched subdomain factorizations (the PARDISO/MUMPS role).
 
 The reference factors each subdomain's sparse block with a sequential sparse
 direct solver per rank (reference: utils/preAlps_solver.c,
-mkl_pardiso_solver.c). On TPU the idiomatic equivalent is: RCM-reorder each
+mkl_pardiso_solver.c). The batched equivalent here is: RCM-reorder each
 block (host), densify, and run ONE batched Cholesky over all blocks — solves
-are batched triangular solves on the MXU. Blocks of unequal size are padded
+are batched triangular solves. Blocks of unequal size are padded
 with an identity tail.
 """
 

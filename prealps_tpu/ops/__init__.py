@@ -1,7 +1,8 @@
 """Device-side numeric kernels: SpMM, CholQR, Lanczos, batched factorizations.
 
 Replaces the reference's MKL BLAS/SpBLAS kernel layer (reference:
-utils/cplm_light/cplm_kernels.c) with jnp/XLA ops and Pallas TPU kernels.
+utils/cplm_light/cplm_kernels.c) with jnp/XLA ops and one Pallas (Triton)
+stencil kernel.
 """
 
 from prealps_tpu.ops.formats import (
@@ -17,7 +18,6 @@ from prealps_tpu.ops.formats import (
 from prealps_tpu.ops.spmm import (
     ell_spmm,
     block_ell_spmm,
-    block_ell_spmm_pallas,
     stencil_bsr_spmm,
     stencil_bsr_spmm_t,
     panel_to_lane_major,
@@ -35,7 +35,6 @@ __all__ = [
     "csr_to_stencil_bsr_t",
     "ell_spmm",
     "block_ell_spmm",
-    "block_ell_spmm_pallas",
     "stencil_bsr_spmm",
     "stencil_bsr_spmm_t",
     "panel_to_lane_major",

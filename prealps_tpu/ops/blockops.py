@@ -1,9 +1,9 @@
 """Small dense block operations shared by the solvers.
 
-These are the TPU-native equivalents of the reference's MKL kernel layer used
+These are the JAX equivalents of the reference's MKL kernel layer used
 inside ECG (reference: src/solvers/ecg.c uses LAPACKE dpotrf/dpstrf/dgesvd/
 dgeqrf/dormqr + cblas dtrsm on t×t / m×t blocks). All matmuls request
-HIGHEST precision so the f32 path uses true f32 accumulation on the MXU.
+HIGHEST precision so the f32 path uses true f32 products (never TF32).
 """
 
 from __future__ import annotations
@@ -15,6 +15,21 @@ import jax
 import jax.numpy as jnp
 
 HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def f64_traced(fn):
+    """Trace `fn` with x64 on, whatever the caller's setting. This is where
+    the f32 solve path sums in f64 and rounds once at the end (stencil
+    SpMM, double-float residuals, the bj2l coarse solve): every product of
+    two f32 values is exact in f64, so such a sum is accurate to the
+    rounding of its result."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with jax.enable_x64(True):
+            return fn(*args, **kwargs)
+
+    return wrapped
 
 
 def timing_no_collectives() -> bool:
@@ -64,8 +79,8 @@ def right_tri_solve(u: jax.Array, x: jax.Array) -> jax.Array:
 
 def tri_inv(u: jax.Array) -> jax.Array:
     """Explicit inverse of a small upper-triangular factor (t×t). Used so
-    panel-scale triangular solves become MXU matmuls — on TPU a wide-RHS
-    triangular solve is far slower than a (t×t) inversion + GEMM, and for
+    panel-scale triangular solves become matmuls — a wide-RHS triangular
+    solve is slower than a (t×t) inversion + GEMM, and for
     CholQR-grade orthonormalisation the κ² amplification is already present
     in the Gram matrix, so the explicit inverse loses nothing."""
     eye = jnp.eye(u.shape[0], dtype=u.dtype)

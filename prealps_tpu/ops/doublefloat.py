@@ -1,6 +1,6 @@
 """Double-float (compensated f32) arithmetic building blocks.
 
-TPUs have no native f64; this module provides error-free transformations
+For f32 solves, this module provides error-free transformations
 (Knuth two-sum, Dekker split/two-prod) and compensated reductions that give
 ~2x f32 precision (≈ 49-bit mantissa) using pairs (hi, lo) of f32 values.
 Used where a single f32 reduction is the accuracy bottleneck (residual

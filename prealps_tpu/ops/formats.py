@@ -1,6 +1,6 @@
 """Device sparse-matrix formats with static shapes.
 
-TPU/XLA needs static shapes and regular access; CSR's ragged rows are hostile
+XLA needs static shapes and regular access; CSR's ragged rows are hostile
 to both. Two formats are provided, converted host-side from scipy CSR
 (replacing the reference's 4-array MKL CSR, reference:
 utils/cplm_light/cplm_kernels.c:620 CPLM_MatCSRKernelGenMatDenseMult):
@@ -11,7 +11,7 @@ utils/cplm_light/cplm_kernels.c:620 CPLM_MatCSRKernelGenMatDenseMult):
 
 * Block-ELL: rows grouped into bm-row blocks; for each row block, the set of
   bk-wide column blocks containing nonzeros, padded to the max count S.
-  blocks (nrb, S, bm, bk), blkcols (nrb, S). This is the MXU-friendly format
+  blocks (nrb, S, bm, bk), blkcols (nrb, S). This is the dense-block format
   the Pallas SpMM kernel consumes: each (bm, bk) value block multiplies a
   (bk, t) panel slice of X.
 
@@ -91,6 +91,38 @@ def csr_to_ell(a: sp.spmatrix, ncols: int | None = None, dtype=None) -> EllMatri
     vals[rows, slot] = a.data
     cols[rows, slot] = a.indices
     return EllMatrix(jnp.asarray(vals), jnp.asarray(cols), (n, ncols))
+
+
+def rounding_remainder(a: sp.spmatrix, stored,
+                       store_dtype=np.float32) -> jax.Array:
+    """f32 values of A_lo = A − store(A), laid out like the operator the
+    solve keeps: the lane-major (S, br, br, nrb) block table for a stencil
+    format (StencilBsrMatrix or StencilBsrTMatrix), the (n, L) values for an
+    EllMatrix built from the same `a`. store() is the dtype A is kept in
+    (f32, or bfloat16 through ml_dtypes).
+
+    Refinement residuals add A_lo·x so that they see the f64 matrix: without
+    it the refinement converges to the stored operator's solution, whose
+    true residual sits at ~eps·‖A‖·‖x‖/‖b‖. A_lo itself is f32, not the
+    store dtype: a bf16 A_lo's own rounding would set a ~1e-8 floor."""
+    def remainder(v64):
+        return (v64 - v64.astype(store_dtype).astype(np.float64)
+                ).astype(np.float32)
+
+    if isinstance(stored, EllMatrix):
+        return jnp.asarray(remainder(np.asarray(
+            csr_to_ell(a, dtype=np.float64).vals)))
+    # stencil: per-entry lo, then one f32 scatter into the block table
+    # (positions are unique), never a dense f64 table
+    coo = sp.csr_matrix(a).tocoo()
+    lo_vals = remainder(coo.data.astype(np.float64))
+    br = stored.br
+    nrb = a.shape[0] // br
+    offs = np.asarray(stored.offsets)
+    slot = np.searchsorted(offs, (coo.col // br) - (coo.row // br))
+    lo = np.zeros((offs.size, br, br, nrb), dtype=np.float32)
+    lo[slot, coo.row % br, coo.col % br, coo.row // br] = lo_vals
+    return jnp.asarray(lo)
 
 
 def csr_to_block_ell(
@@ -210,11 +242,10 @@ class StencilBsrTMatrix:
     """Lane-major (transposed) stencil format: blocks_t[s, m, k, r] over node
     index r in the MINOR (lane) dimension.
 
-    TPU arrays put the last axis in 128-wide vector lanes; an (n, t) panel
-    with t≈12 uses <10% of each lane tile. Keeping the long node axis minor
-    makes every elementwise FMA of the stencil SpMM fully lane-utilised.
-    SpMM works on x viewed as (t, br, nrb) and unrolls the br×br block
-    product into br² broadcast FMAs per stencil offset.
+    Keeping the long node axis minor makes every load of the stencil SpMM
+    contiguous along nodes, whatever t is. SpMM works on x viewed as
+    (t, br, nrb) and unrolls the br×br block product into br² broadcast
+    FMAs per stencil offset.
     """
 
     blocks_t: jax.Array  # (S, br, br, nrb)
@@ -250,7 +281,7 @@ class DiaEllMatrix:
     """Hybrid DIA + ELL: dense diagonals as static shifted reads, stragglers
     in a small ELL remainder.
 
-    The general-matrix TPU answer to CSR SpMM (reference:
+    The general-matrix answer to CSR SpMM (reference:
     utils/cplm_light/cplm_kernels.c:620 mkl_dcsrmm): after a bandwidth-
     reducing ordering (RCM), FEM/graph matrices concentrate their nnz on a
     few hundred dense-ish diagonals. Each selected diagonal becomes ONE
@@ -358,23 +389,21 @@ def detect_format(
     allow_stencil: bool = True,
     allow_reorder: bool = True,
 ) -> tuple[str, dict]:
-    """Pick the fastest storage format for `a` on TPU (the product path for
-    the reference's "any CSR at memory speed" role, mkl_dcsrmm,
-    utils/cplm_light/cplm_kernels.c:620-671 — on TPU one format does not fit
-    all, so structure extraction IS the product path).
+    """Pick the storage format for `a` (the product path for the
+    reference's "any CSR at memory speed" role, mkl_dcsrmm,
+    utils/cplm_light/cplm_kernels.c:620-671 — one format does not fit all,
+    so structure extraction IS the product path).
 
-    Cascade, best measured throughput first (docs/PERFORMANCE.md general-SpMM
-    study on one v5e chip):
-      1. stencil-BSR  (~60 Gnnz/s): constant node-offset stencil pattern;
-      2. DIA+ELL      (~tens of Gnnz/s): ≥ dia_min_cov of nnz on promoted
-         diagonals (tried in caller order AND under RCM);
-      3. Morton-clustered block-ELL (measured 1.9× over ELL at fill≈0.17):
-         geometric/mesh graphs without grid order — BFS-landmark
-         pseudo-coordinates + Morton order make 8×8 blocks dense enough that
-         ONE gather index fetches a whole (8, t) X-block: a 64·fill
-         reduction in gather indices (the ~0.2 Gindex/s ceiling) against a
-         1/fill MXU-compute inflation; below fill≈0.10 it stops paying;
-      4. ELL          (gather-bound floor): anything else.
+    Cascade, fewest bytes and gathers first:
+      1. stencil-BSR: constant node-offset stencil pattern (no gathers);
+      2. DIA+ELL: ≥ dia_min_cov of nnz on promoted diagonals (tried in
+         caller order AND under RCM);
+      3. Morton-clustered block-ELL: geometric/mesh graphs without grid
+         order — BFS-landmark pseudo-coordinates + Morton order make 8×8
+         blocks dense enough that ONE gather index fetches a whole (8, t)
+         X-block: a 64·fill reduction in gather indices against a 1/fill
+         compute inflation; below fill≈0.10 it stops paying;
+      4. ELL (gather-bound floor): anything else.
 
     allow_reorder=False disables the choices that require a row
     permutation (Morton clustering, RCM-recovered DIA) — e.g. when the

@@ -1,4 +1,4 @@
-"""Generalized symmetric Lanczos eigensolver (the PARPACK role, TPU-native).
+"""Generalized symmetric Lanczos eigensolver (the PARPACK role, in JAX).
 
 Solves S u = λ B u for the smallest eigenpairs, with S SPD-symmetric and B
 SPD, via Lanczos on OP = B⁻¹S in the B-inner product — the same mode-2
@@ -103,7 +103,7 @@ def lanczos_thick_restart(
     v0: jax.Array | None = None,
 ) -> LanczosResult:
     """Thick-restart Lanczos (Wu & Simon) in the B-inner product — the
-    TPU-native analog of PARPACK's implicitly-restarted iteration
+    JAX analog of PARPACK's implicitly-restarted iteration
     (reference: utils/eigsolver.c:110 ncv=2·nev+1 WITH restarts, maxit=200).
 
     Each cycle runs the basis out to `ncv` vectors with full two-pass
@@ -241,10 +241,9 @@ def block_lanczos_thick_restart(
 
     Mathematically the same Wu–Simon thick-restart iteration as
     `lanczos_thick_restart`, with vectors replaced by bt-wide panels. The
-    motive is the TPU dispatch economics of the LORASC deflation build
-    (docs/PERFORMANCE.md round 4): the scalar iteration is ~3000 SEQUENTIAL
-    t=1 operator applies at ~7.5 ms each (dispatch-bound — basis-size cuts
-    don't help), while every operand (stencil SpMM, banded solves) is
+    motive is the dispatch economics of the LORASC deflation build: the
+    scalar iteration is ~3000 SEQUENTIAL t=1 operator applies
+    (dispatch-bound — basis-size cuts don't help), while every operand (stencil SpMM, banded solves) is
     panel-capable, so bt vectors per step cost barely more than one. Block
     Lanczos also converges clustered spectra better — exactly the shape of
     the near-null deflation window. (PARPACK role: eigsolver.c:225-231.)

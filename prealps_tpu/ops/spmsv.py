@@ -6,8 +6,8 @@ block structure of B and C, skips empty blocks, and switches C to dense when
 it fills in; used for s-step/CA Krylov basis construction, not called by ECG
 — iterativeKernels/README.md:3.)
 
-TPU-native redesign: values are carried DENSE (n, t) — dense panels are the
-profitable regime on the MXU and XLA needs static shapes — while the BLOCK
+Redesign: values are carried DENSE (n, t) — dense panels are the profitable
+regime for batched products and XLA needs static shapes — while the BLOCK
 STRUCTURE is tracked exactly like the reference's ABlockStruct contract
 (spMSV.h:57-60):
 
@@ -141,11 +141,11 @@ def spmsv_chain(
 #
 # The dense-carrier spmsv above masks dead blocks but still stores and
 # multiplies (n, t) values — it tracks the reference's structure contract
-# with nothing sparse to switch FROM (round-2 VERDICT). The packed variant
+# with nothing sparse to switch FROM. The packed variant
 # stores ONLY the active row-blocks of B ((cap, bs, t) + block ids) and
 # computes ONLY the active row-blocks of C: traffic and FLOPs scale with
 # the active fraction, exactly the economics of the reference's
-# preAlps_spMSV (spMSV.h:16-86). TPU constraints shape the design: the
+# preAlps_spMSV (spMSV.h:16-86). Static shapes shape the design: the
 # active set lives in a CAPACITY-padded buffer (static shapes; -1 = dead
 # slot), A rides the block-ELL format at block granularity, and the
 # sparse->dense switch compares the PREDICTED fill against the threshold

@@ -4,7 +4,7 @@
 D4.1 kernels; binary reduction tree where each node runs a strong
 rank-revealing QR on the candidate columns and passes the k winners up.)
 
-TPU-native redesign: the local rank-revealing step is QR with column
+Redesign: the local rank-revealing step is QR with column
 pivoting — implemented here as a jittable greedy pivoted CholQR on the
 candidate Gram matrix (k steps of diagonal-pivoted Cholesky ≡ column-norm
 greedy pivoting, the same selection rule QRCP uses). The tree combine is a
@@ -27,7 +27,7 @@ def qrcp_select(panel: jax.Array, k: int) -> jax.Array:
     same pivot order as Householder QRCP (both greedily maximise the
     residual column norm).
 
-    Numerics (round-3, VERDICT item 9): the Gram squares the panel's
+    Numerics: the Gram squares the panel's
     condition number, so naive f32 accumulation loses pivot fidelity past
     cond(panel) ≈ 3e3. Two mitigations, both applied:
     ① a TSQR pass first — the Gram is then formed from the tiny (c, c)
@@ -35,8 +35,7 @@ def qrcp_select(panel: jax.Array, k: int) -> jax.Array:
       per leaf, same stability class as the reference's SuiteSparseQR leaf
       factorizations, tournamentPivoting.c:35-40);
     ② the R-Gram and the pivoted Cholesky run in float64 when x64 is
-      enabled (CPU; TPU runs are f32-only — R keeps them usable to
-      cond ≈ 1e4 there).
+      enabled (f32 runs keep them usable to cond ≈ 1e4).
     Failure mode (documented, like QRCP itself): greedy column-norm
     pivoting carries no strong-RRQR guarantee — adversarial Kahan-type
     matrices can hide a large trailing singular value from every greedy
@@ -128,9 +127,10 @@ def tournament_select_sharded(
 
     The reference's binary reduction tree moves candidate columns up
     log2(P) MPI levels (reference: utils/iterativeKernels/
-    tournamentPivoting.c:41-80). On a TPU mesh the latency-optimal shape is
+    tournamentPivoting.c:41-80). On a device mesh the latency-optimal shape is
     ONE fused all_gather of every shard's k winner columns (S·k·m values)
-    followed by a replicated final round — collectives are cheap on ICI and
+    followed by a replicated final round — collectives are cheap on the
+    device interconnect and
     S·k panels are small; a log-depth ppermute chain would serialise
     log2(S) latencies for no volume saving.
     """

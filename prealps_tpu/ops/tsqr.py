@@ -1,6 +1,6 @@
 """TSQR: communication-avoiding tall-skinny QR by binary reduction tree.
 
-TPU-native replacement for the tall-skinny QR factorizations the reference's
+JAX replacement for the tall-skinny QR factorizations the reference's
 tournament-pivoting kernels do with SuiteSparseQR (reference:
 utils/iterativeKernels/tournamentPivoting.c:35-40) and the CholQR variants in
 utils/cholqr.c. The reduction-tree structure maps perfectly onto a device

@@ -6,7 +6,11 @@ Axis conventions:
 * 2-D mesh ("host", "chip"): the analog of the reference's two-level
   communicator split (reference: utils/preAlps_utils.c:687
   preAlps_comm2LevelsSplit — masterLevel ↔ "host" axis, localLevel ↔ "chip"
-  axis). Collectives scoped per axis ride DCN vs ICI respectively.
+  axis). Collectives are scoped per axis.
+
+The mesh follows the algorithm alone: the cards of one host are joined all
+to all by NVLink, so any device order costs the same, and shard i of an
+n-shard mesh lives on jax.devices()[i].
 """
 
 from __future__ import annotations

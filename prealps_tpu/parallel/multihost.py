@@ -1,19 +1,19 @@
-"""Multi-host (DCN) initialization and mesh construction. EXPERIMENTAL:
-this glue is necessarily untested on real multi-host hardware (the dev
-environment exposes a single chip); the single-host smoke test covers the
-mesh construction only. Treat as a starting point on a real pod.
+"""Multi-host initialization and mesh construction. EXPERIMENTAL: this
+glue is untested across real hosts (the tests run two processes on one
+machine); treat it as a starting point on a cluster.
 
 The reference scales across nodes with plain `mpirun` — every rank is a
 process and MPI wires them up (reference: README.md:53 `mpirun -np 8 ...`,
 make.inc:25 mpicc). The JAX equivalent is `jax.distributed.initialize`: one
-process per host, all chips of all hosts visible as one global device list,
-collectives riding ICI within a host/slice and DCN across.
+process per host, all devices of all hosts visible as one global device
+list, collectives riding the intra-host interconnect within a host and the
+network across hosts.
 
 Mapping to the reference's two-level communicator split
 (preAlps_utils.c:687 comm2LevelsSplit):
 
-    masterLevel  <-> the cross-host ("host") mesh axis (DCN)
-    localLevel   <-> the within-host ("chip") mesh axis (ICI)
+    masterLevel  <-> the cross-host ("host") mesh axis (network)
+    localLevel   <-> the within-host ("chip") mesh axis (NVLink)
 
 Usage on each host (driver scripts / cluster launchers):
 
@@ -38,8 +38,9 @@ def initialize(
 ) -> None:
     """Wire this process into the JAX distributed runtime (idempotent).
 
-    With no arguments, relies on the cluster environment (TPU pod metadata /
-    JAX_COORDINATOR_ADDRESS etc.), which is the common TPU-pod path.
+    With no arguments, relies on the cluster environment
+    (JAX_COORDINATOR_ADDRESS etc.); otherwise pass coordinator_address,
+    num_processes and process_id.
     """
     import jax
 
@@ -64,10 +65,10 @@ def global_mesh(axis: str = "shards"):
 
 
 def global_mesh_2level(axes: tuple = ("host", "chip")):
-    """2-D (hosts × chips/host) mesh: outer axis DCN, inner axis ICI.
+    """2-D (hosts × chips/host) mesh: outer axis across hosts, inner on-host.
 
-    Collectives with axis_name=axes[1] stay on-host (ICI); axis_name=axes[0]
-    crosses hosts (DCN) — scope separator psums and other small reductions to
+    Collectives with axis_name=axes[1] stay on-host; axis_name=axes[0]
+    crosses hosts — scope separator psums and other small reductions to
     the outer axis, bulk halo exchange to the inner one.
     """
     import jax

@@ -2,11 +2,11 @@
 
 (reference: src/preconditioners/block_jacobi.c factors the local diagonal
 block with MKL-PARDISO sparse Cholesky and applies multi-RHS triangular
-solves.) TPU-native re-design: the diagonal block is split into nb
+solves.) Re-design: the diagonal block is split into nb
 equal-padded sub-blocks, each RCM-ordered and densified, factored with a
-batched Cholesky — apply is a pair of batched triangular solves, which maps
-straight onto the MXU. The number of blocks decouples from the device count
-(the reference pins 1 block per MPI rank; on TPU nb controls the
+batched Cholesky — apply is a pair of batched triangular solves. The number
+of blocks decouples from the device count (the reference pins 1 block per
+MPI rank; here nb controls the
 dense-block size / preconditioner strength trade-off).
 """
 
@@ -26,8 +26,8 @@ from prealps_tpu.core.partition import nsplit, rcm_order
 @dataclass
 class BlockJacobi:
     """factors: (nb, mb, mb) per-block operator for the solve — either the
-    EXPLICIT INVERSES of the diagonal blocks (mode="inverse", the TPU fast
-    path: apply is one batched GEMM on the MXU) or lower Cholesky factors
+    EXPLICIT INVERSES of the diagonal blocks (mode="inverse", the f32 fast
+    path: apply is one batched GEMM) or lower Cholesky factors
     (mode="cholesky": two batched triangular solves — exact, used on CPU/f64
     paths). gather_idx maps padded block-major positions to local rows
     (sentinel m = zero row); inv_perm maps local rows back to their padded
@@ -35,8 +35,8 @@ class BlockJacobi:
 
     Note on the inverse mode: a preconditioner apply does not need backward-
     stable solves — the explicit SPD inverse (computed from the f64 Cholesky
-    on the host) applied in f32 is accurate to f32 roundoff, and batched GEMM
-    is ~20x faster than batched triangular solves on TPU.
+    on the host) applied in f32 is accurate to f32 roundoff, and one batched
+    GEMM replaces two sequential batched triangular solves.
     """
 
     factors: jax.Array    # (nb, mb, mb)

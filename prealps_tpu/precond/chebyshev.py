@@ -1,7 +1,7 @@
-"""Chebyshev (polynomial) preconditioner — a TPU-native addition.
+"""Chebyshev (polynomial) preconditioner — an addition to the reference.
 
 Not in the reference (whose preconditioners are all factorization-based via
-MKL-PARDISO/MUMPS). On TPU, subdomain factorizations cost HBM capacity and
+MKL-PARDISO/MUMPS). On an accelerator, subdomain factorizations cost device memory and
 host→device transfer, while SpMM is cheap and already resident; a degree-d
 Chebyshev polynomial in the Jacobi-scaled operator is an M⁻¹ apply of d
 SpMMs with ZERO extra memory — often the better wall-clock trade on this

@@ -1,4 +1,4 @@
-"""LORASC: low-rank-corrected Schur-complement preconditioner, TPU-native.
+"""LORASC: low-rank-corrected Schur-complement preconditioner.
 
 (reference: src/preconditioners/lorasc.c + lorasc_eigsolve.c.) For an SPD
 matrix permuted to block-arrow form
@@ -18,7 +18,7 @@ complement S = Agg − Agi Aii⁻¹ Aig, keeping λ ≤ deflation_tol, with
 σᵢ = (tol − λᵢ)/λᵢ and E Agg-orthonormal (reference: lorasc_eigsolve.c:238-295;
 default deflation_tol 1e-2, lorasc.c:36).
 
-TPU-native choices:
+Design choices:
 * Aii solves: ONE batched dense Cholesky over RCM-ordered subdomain blocks
   (replaces per-rank PARDISO; direct/subdomain.py).
 * Agg solve: dense Cholesky (replaces MUMPS; the separator is small).

@@ -1,4 +1,4 @@
-"""Enlarged Conjugate Gradient (ECG) — TPU-native functional implementation.
+"""Enlarged Conjugate Gradient (ECG) — functional JAX implementation.
 
 Solves SPD systems A x = b with t "enlarged" search directions per iteration
 (the communication-avoiding family of Grigori/Moufawad/Tissot implemented by
@@ -11,10 +11,10 @@ the reference in src/solvers/ecg.c). Three variants, as in the reference
 * odir_fused — orthodir reorganised so ALL cross-device reductions of one
           iteration (P'R, (AV)'Z, (AP)'P, R'R — 5t² numbers) ride a single
           psum (reference: ecg.c:556-565 single MPI_Allreduce). This is the
-          default: on TPU one fused collective per iteration is the
+          default: one fused collective per iteration is the
           latency-optimal shape.
 
-Design differences vs the reference (TPU-first, not a port):
+Design differences vs the reference (a redesign, not a port):
 * No reverse-communication state machine: the caller passes jittable
   operator callbacks `a_apply` / `m_apply`, preserving the matrix-free
   property; the entire solve is ONE `lax.while_loop` under jit.
@@ -27,10 +27,10 @@ Design differences vs the reference (TPU-first, not a port):
 * Works identically single-device (axis_name=None) and inside shard_map
   (axis_name="shards"): all reductions go through `psum`.
 * Panels support two memory layouts (solvers/panels.py): rows-major "nt"
-  and lane-major "tbn" — the latter keeps the long node axis in TPU vector
-  lanes, which is the fast path on hardware.
+  and lane-major "tbn" — the latter keeps the long node axis minor, which
+  is the fast path on the GPU.
 
-All heavy products are tall-skinny GEMMs — t is the MXU batch dim.
+All heavy products are tall-skinny GEMMs with t as the batch dimension.
 """
 
 from __future__ import annotations
@@ -70,7 +70,7 @@ class ECGOptions:
                                  # reference heuristic stalls (measured:
                                  # elasticity t=8 to 1e-8 vs a 2e-4 stall).
     record_history: bool = True
-    layout: str = "nt"           # nt | tbn (lane-major, TPU fast path)
+    layout: str = "nt"           # nt | tbn (lane-major, GPU fast path)
     stall_window: int = 0        # >0: stop after this many CONSECUTIVE
                                  # iterations whose residual improved by less
                                  # than stall_rtol (relative). Default off —
@@ -81,6 +81,8 @@ class ECGOptions:
                                  # ride out block-CG plateaus, short enough
                                  # not to burn maxiter at the f32 floor —
                                  # the reference simply burns maxiter).
+                                 # Within 2x of tol a plateau ends after a
+                                 # tenth of the window (_NEAR_TOL).
     stall_rtol: float = 5e-4     # per-iteration relative improvement that
                                  # counts as progress. 5e-4 ≈ the f32 floor's
                                  # noise band: a true floor jitters well
@@ -88,8 +90,8 @@ class ECGOptions:
                                  # geometric convergence clears it.
     stacked: Optional[bool] = None  # None = auto: stack the 7 solver panels
                                  # into ONE array so each iteration is one
-                                 # Gram matmul + one panel GEMM (the TPU
-                                 # fast path; see _iter_odir_fused_stacked).
+                                 # Gram matmul + one panel GEMM (see
+                                 # _iter_odir_fused_stacked).
                                  # Auto-enabled for layout="tbn" +
                                  # variant="odir_fused"; handles adaptive
                                  # too (the SVD rotation composes into the
@@ -145,13 +147,26 @@ class _State(NamedTuple):
     stall: jax.Array     # iterations since meaningful improvement
 
 
-def _track_stall(state: "_State", res, stall_rtol):
+# A plateau within this factor of the tolerance is the f32 floor, not a
+# transient block-CG plateau, and each of its iterations counts this many
+# times towards stall_window (250 -> 25 iterations). odir_fused's recursive
+# residual flattens at its floor where omin's keeps falling: with an almost
+# exact preconditioner (exact-Schur LORASC on elasticity3d(8³), κ≈3e5) the
+# floor lies at 0.7-1.1× a 1e-3 inner tolerance, and a full window there
+# costs 250 idle iterations per refinement round.
+_NEAR_TOL = 2.0
+_NEAR_TOL_WEIGHT = 10
+
+
+def _track_stall(state: "_State", res, opts: "ECGOptions", normb):
     # an improvement below stall_rtol does not count as progress: a terminal
     # f32 floor jitters below it while real convergence (even slow geometric
     # rates) clears it every iteration (see ECGOptions.stall_rtol)
-    improved = res < (1.0 - stall_rtol) * state.best_res
+    improved = res < (1.0 - opts.stall_rtol) * state.best_res
     best = jnp.minimum(state.best_res, res)
-    stall = jnp.where(improved, jnp.int32(0), state.stall + 1)
+    near = best <= _NEAR_TOL * opts.tol * normb
+    step = jnp.where(near, jnp.int32(_NEAR_TOL_WEIGHT), jnp.int32(1))
+    stall = jnp.where(improved, jnp.int32(0), state.stall + step)
     return best, stall
 
 
@@ -232,7 +247,7 @@ def _iter_omin(state: _State, a_apply, m_apply, axis_name, opts, normb, red_tol,
         mask = new_mask
     p_new = ops.scale_dirs(p_new, mask)
     ap_new = a_apply(p_new)
-    best_res, stall = _track_stall(state, res, opts.stall_rtol)
+    best_res, stall = _track_stall(state, res, opts, normb)
     return state._replace(
         x_blk=x_blk, r=r, p=p_new, ap=ap_new, z=z, mask=mask,
         it=state.it + 1, res=res,
@@ -285,7 +300,7 @@ def _iter_odir(state: _State, a_apply, m_apply, axis_name, opts, normb, red_tol,
     if opts.adaptive and opts.adaptive_mode == "freeze":
         p_new = z + ops.scale_dirs(p, 1.0 - mask)   # frozen columns kept
     ap_new = a_apply(p_new)
-    best_res, stall = _track_stall(state, res, opts.stall_rtol)
+    best_res, stall = _track_stall(state, res, opts, normb)
     return state._replace(
         x_blk=x_blk, r=r, p=p_new, ap=ap_new,
         p_prev=ops.scale_dirs(p, mask), ap_prev=ops.scale_dirs(ap, mask),
@@ -357,7 +372,7 @@ def _iter_odir_fused(state: _State, a_apply, m_apply, axis_name, opts, normb, re
         p_new = z + ops.scale_dirs(p, 1.0 - mask)
     ap_new = a_apply(p_new)
     z_new = m_apply(ap_new)
-    best_res, stall = _track_stall(state, res, opts.stall_rtol)
+    best_res, stall = _track_stall(state, res, opts, normb)
     return state._replace(
         x_blk=x_blk, r=r, p=p_new, ap=ap_new,
         p_prev=ops.scale_dirs(p, mask), ap_prev=ops.scale_dirs(ap, mask),
@@ -383,8 +398,8 @@ def _iter_odir_fused(state: _State, a_apply, m_apply, axis_name, opts, normb, re
 #                                    the panel reads fused too)
 #     W' = C W                     (one (7t)×(7t) composed coefficient GEMM)
 #     AP', Z' slots <- A·P', M⁻¹AP' (SpMM + preconditioner)
-# i.e. ~4 HBM passes over the panel set instead of ~37 separate op passes —
-# measured 1.45 ms/iter of dense glue collapsing (docs/PERFORMANCE.md).
+# i.e. ~4 passes over the panel set in device memory instead of ~37
+# separate op passes.
 # Mathematically identical to _iter_odir_fused (same order of corrections
 # through the Cholesky factor); not bit-identical (different GEMM grouping).
 
@@ -399,9 +414,7 @@ def _use_stacked(opts: "ECGOptions") -> bool:
     if opts.stacked is not None:
         return opts.stacked
     # omin stays unstacked by default: its sequential M-dependency leaves
-    # three separate reductions either way, and the measured TPU TTS favors
-    # the unstacked path (het n=148k LORASC: 1.31 s unstacked vs 1.46 s
-    # stacked at equal iterations) — opt in with stacked=True
+    # three separate reductions either way — opt in with stacked=True
     return opts.layout == "tbn" and opts.variant == "odir_fused"
 
 
@@ -412,11 +425,9 @@ def _is_stacked_state(state: "_State") -> bool:
 
 def _iter_odir_fused_stacked(state, a_apply, m_apply, axis_name, opts,
                              normb, red_tol, ops):
-    W2 = state.x_blk                    # (7t, prod(space)) FLAT 2-D: TPU
-    # tiles the last TWO dims to (8,128); a (…, br=3, nrb) panel wastes 5/8
-    # of every sublane, measured 2× on the Gram and 3× on the C-GEMM
-    # (docs/PERFORMANCE.md) — so the stacked state lives flat and panels are
-    # reshaped only at the operator boundary
+    W2 = state.x_blk                    # (7t, prod(space)) FLAT 2-D: the
+    # Gram and the C-GEMM are plain 2-D matmuls; panels are reshaped only
+    # at the operator boundary
     panel_shape = state.p.shape[1:]     # (t, *space) carried by placeholder
     mask = state.mask
     dtype = state.res.dtype
@@ -496,7 +507,7 @@ def _iter_odir_fused_stacked(state, a_apply, m_apply, axis_name, opts,
            .at[_SZ * t:(_SZ + 1) * t].set(z_new.reshape(t, -1))
     )
 
-    best_res, stall = _track_stall(state, res, opts.stall_rtol)
+    best_res, stall = _track_stall(state, res, opts, normb)
     return state._replace(
         x_blk=Wn, mask=mask, it=state.it + 1, res=res,
         breakdown=state.breakdown | breakdown,
@@ -509,9 +520,8 @@ def _iter_omin_stacked(state, a_apply, m_apply, axis_name, opts,
                        normb, red_tol, ops):
     """Stacked orthomin: panels [X, R, P, AP, Z] as ONE flat (5t, N) array.
 
-    What stacking buys for omin is the flat SUBLANE-DENSE storage: unstacked
-    (t, br, nrb) panels with br=3 physically move 8/3 of their bytes through
-    every op (docs/PERFORMANCE.md layout rules). The reduction structure is
+    What stacking buys for omin is the flat storage: every panel op is one
+    2-D matmul over the stacked array. The reduction structure is
     deliberately NOT fused beyond the reference's own omin (ecg.c:289-400,
     three allreduces): computing alpha as Uiᵀ(PᵀR) off one big Gram — the
     odir_fused trick — amplifies the raw Gram's f32 rounding by κ(U), and on
@@ -583,7 +593,7 @@ def _iter_omin_stacked(state, a_apply, m_apply, axis_name, opts,
     ap_new = a_apply(p_new.reshape(panel_shape)).reshape(t, -1)
     Wn = jnp.concatenate([x_rows, r_rows, p_new, ap_new, zf])
 
-    best_res, stall = _track_stall(state, res, opts.stall_rtol)
+    best_res, stall = _track_stall(state, res, opts, normb)
     return state._replace(
         x_blk=Wn, mask=mask, it=state.it + 1, res=res,
         breakdown=state.breakdown | breakdown,
@@ -627,8 +637,7 @@ def ecg_init(
     zeros = jnp.zeros_like(p0)
     history = jnp.full((opts.maxiter,), -1.0, dtype)
     if _use_stacked(opts):
-        # panels in ONE FLAT 2-D array (sublane-efficient — see
-        # _iter_odir_fused_stacked): 7 slots for odir_fused, 5 for omin
+        # panels in ONE FLAT 2-D array (see _iter_odir_fused_stacked): 7 slots for odir_fused, 5 for omin
         # (slot layouts _SX…/_OX… — X is slot 0 in both); the zero-size `p`
         # placeholder carries the panel shape for the operator boundary
         if opts.variant == "omin":

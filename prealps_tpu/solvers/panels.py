@@ -4,11 +4,10 @@ Two layouts for the (n × t) tall-skinny solver panels:
 
 * "nt"  — rows-major (n, t): the natural mathematical layout; fine on CPU
   and for f64 correctness runs.
-* "tbn" — lane-major (t, br, nrb) with the long node axis MINOR: on TPU the
-  last axis maps to 128-wide vector lanes, and t≈12 in the minor dim would
-  waste >90% of every tile. Keeping n minor makes all elementwise solver
-  updates and the stencil SpMM fully lane-utilised (measured ~16x faster
-  than "nt" on v5e for the SpMM alone).
+* "tbn" — lane-major (t, br, nrb) with the long node axis MINOR: every
+  elementwise solver update and every load of the stencil SpMM is then
+  contiguous along nodes, whatever t is (the layout the Triton stencil
+  kernel reads, ops/spmm.py).
 
 Every layout-dependent operation ECG needs is routed through one of these
 two namespaces; the solver algebra in ecg.py is layout-blind.

@@ -1,7 +1,7 @@
 """Mixed-precision iterative refinement around a device solver.
 
 The reference is float64-native via MKL (reference: src/solvers/ecg.c —
-all-double arena). On TPU the fast path is float32; tolerances below the f32
+all-double arena). On the GPU the fast path is float32; tolerances below the f32
 attainable floor are reached by iterative refinement: float64 residuals on
 the host, float32 inner solves on device. Shared by all drivers."""
 

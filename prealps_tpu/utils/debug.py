@@ -2,7 +2,7 @@
 
 (reference: -DDEBUG synchronized per-rank printing,
 utils/preAlps_utils.c:758 preAlps_int_printSynchronized /
-CPLM_MatCSRPrintSynchronizedCoords.) On TPU the analog is jax.debug.print
+CPLM_MatCSRPrintSynchronizedCoords.) In JAX the analog is jax.debug.print
 with the shard index prefixed — callbacks are serialized by the runtime, so
 output is readable without an explicit rank barrier.
 """

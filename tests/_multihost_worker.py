@@ -1,16 +1,15 @@
 """Worker process for the 2-process jax.distributed CPU smoke test.
 
 Launched by tests/test_distributed.py::TestMultihostGlue::test_two_process_solve
-— the TPU-native analog of the reference's `mpirun -np N` discipline
+— the analog of the reference's `mpirun -np N` discipline
 (reference: README.md:53, make.inc:25): two OS processes, each owning 4
 virtual CPU devices, wired into ONE 8-device (host × chip) mesh via
 `jax.distributed.initialize`, then THE LIBRARY SOLVER run distributed:
 `prealps_tpu.solvers.ecg.ecg_solve` (odir_fused, lane-major) with the
 stencil ppermute halo exchange and a block-Jacobi preconditioner, composed
 under shard_map exactly as `parallel/driver.py` composes them — every Gram
-psum and halo ppermute crosses the process boundary (the DCN analog).
-Round 4's worker solved with a bespoke dense CG; this one exercises the
-product path (VERDICT r4 missing #4).
+psum and halo ppermute crosses the process boundary (the cross-host analog).
+It exercises the product path, not a bespoke solver.
 
 Usage: python tests/_multihost_worker.py <coordinator> <nproc> <pid> [mode]
 mode "ecg" (default): ecg_solve + stencil halo + block Jacobi composed
@@ -109,7 +108,7 @@ def main():
     )
     from prealps_tpu.direct.device_bj import bj_apply_flat
     from prealps_tpu.ops.formats import csr_to_stencil_bsr_t
-    from prealps_tpu.ops.spmm import stencil_scan_accumulate
+    from prealps_tpu.ops.spmm import stencil_spmm_ext
     from prealps_tpu.solvers import ECGOptions
     from prealps_tpu.solvers.ecg import ecg_solve
 
@@ -171,7 +170,7 @@ def main():
                 left = jax.lax.ppermute(x[:, :, nrb_loc - h:], AXES, fwd)
                 right = jax.lax.ppermute(x[:, :, :h], AXES, bwd)
                 x_ext = jnp.concatenate([left, x, right], axis=2)
-                return stencil_scan_accumulate(blocks_loc, offsets, x_ext, h)
+                return stencil_spmm_ext(blocks_loc, offsets, x_ext, h)
 
             def m_apply(r):
                 return bj_apply_flat(inv_loc, r)

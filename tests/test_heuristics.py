@@ -1,6 +1,6 @@
 """Stress tests for the adaptive-reduction and stall heuristics
-(VERDICT r1 item 8: cases where ADAPT_BS must fire and where the stall guard
-must NOT fire; reference: src/solvers/ecg.c:361-393,444-497 ADAPT_BS)."""
+(cases where ADAPT_BS must fire and where the stall guard must NOT fire;
+reference: src/solvers/ecg.c:361-393,444-497 ADAPT_BS)."""
 
 import numpy as np
 import pytest
@@ -126,3 +126,26 @@ class TestStallGuard:
                           stall_window=10, stall_rtol=0.999999)
         res = ecg_solve(_dense_apply(a), None, jnp.asarray(b), opts)
         assert int(res.iters) <= 12, int(res.iters)
+
+
+class TestNearTolStall:
+    """Within 2x of the tolerance a plateau is the f32 floor: each of its
+    iterations counts ten times towards stall_window."""
+
+    @pytest.mark.parametrize("res, tol, step", [
+        (1.0, 0.6, 10),    # no progress, best within 2x of tol*normb
+        (1.0, 1e-3, 1),    # no progress far from tol: a block-CG plateau
+        (0.5, 0.6, -3),    # progress resets the counter (3 -> 0)
+    ])
+    def test_stall_step(self, res, tol, step):
+        from types import SimpleNamespace
+
+        from prealps_tpu.solvers.ecg import _track_stall
+
+        state = SimpleNamespace(best_res=jnp.float32(1.0),
+                                stall=jnp.int32(3))
+        opts = ECGOptions(tol=tol, stall_window=250)
+        best, stall = _track_stall(state, jnp.float32(res), opts,
+                                   jnp.float32(1.0))
+        assert float(best) == min(1.0, res)
+        assert int(stall) == 3 + step

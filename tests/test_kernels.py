@@ -491,38 +491,6 @@ class TestRayleighRitzRefine:
         assert pre.deflated >= 1
 
 
-class TestBJApplyPallas:
-    def test_matches_lane_major_einsum(self, rng):
-        """Pallas BJ apply (pre-packed dense inverses, 128-row tiles) must be
-        numerically equivalent to the einsum path it replaces."""
-        import jax.numpy as jnp
-
-        from prealps_tpu.core.generators import elasticity3d
-        from prealps_tpu.core.layout import contiguous_row_layout, permute_and_pad_matrix
-        from prealps_tpu.direct.device_bj import (
-            bj_apply_lane_major,
-            bj_apply_pallas,
-            build_device_block_jacobi,
-            pack_bj_dense,
-        )
-        from prealps_tpu.ops.formats import csr_to_stencil_bsr_t
-
-        a = elasticity3d(6, 5, 5)
-        mbn, br, t = 24, 3, 4
-        lay = contiguous_row_layout(a.shape[0], 1, row_multiple=mbn * br)
-        apad = permute_and_pad_matrix(a, lay)
-        sb = csr_to_stencil_bsr_t(apad, br=br, dtype=np.float32)
-        inv5 = build_device_block_jacobi(sb.blocks_t, sb.offsets, mbn=mbn)
-        nrb = sb.blocks_t.shape[-1]
-        z = jnp.asarray(rng.standard_normal((t, br, nrb)).astype(np.float32))
-        want = bj_apply_lane_major(inv5, z)
-        b2 = pack_bj_dense(inv5)
-        assert b2.shape[1] % 128 == 0
-        got = bj_apply_pallas(b2, z, br=br, interpret=True)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=2e-5, atol=2e-5)
-
-
 class TestSpMSVPacked:
     """Sparse-VALUED spMSV (round 3): packed active blocks, capacity-
     padded — traffic and FLOPs scale with the active fraction (the

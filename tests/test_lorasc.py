@@ -142,9 +142,8 @@ class TestDistributedLorasc:
     def test_distributed_lorasc_beats_bj_8shards(self, ela_small, rng):
         """The dryrun_multichip configuration (8 shards): LORASC must keep
         the reference's headline property (manual Table 4: 102 vs 4058
-        iterations) — round 2 had this inverted (MULTICHIP_r02: 1791 vs
-        828) before the exact-Schur fallback for separator-dominated
-        partitions landed."""
+        iterations) — it was inverted (1791 vs 828) before the exact-Schur
+        fallback for separator-dominated partitions landed."""
         from prealps_tpu.parallel.driver import DistributedECG
         from prealps_tpu.parallel.lorasc_driver import DistributedLorascECG
 
@@ -156,6 +155,23 @@ class TestDistributedLorasc:
         x2, i2 = s_bj.solve(b)
         assert _relres(ela_small, x1, b) < 1e-5
         assert i1["iters"] < i2["iters"], (i1["iters"], i2["iters"])
+
+    def test_exact_schur_odir_fused_floor_ends_round(self):
+        """odir_fused's recursive residual flattens at its f32 floor, which
+        with exact-Schur LORASC sits near the inner tolerance: at
+        inner_tol=5e-4 the floor is 6.6e-4. A plateau that close to the
+        target ends the refinement round after 25 iterations instead of the
+        250-iteration stall window (256 iterations in all before)."""
+        from __graft_entry__ import _problem
+        from prealps_tpu.parallel.lorasc_driver import DistributedLorascECG
+
+        a, b = _problem(nel=8, dtype=np.float32)
+        opts = ECGOptions(t=2, tol=1e-6, maxiter=6000, variant="odir_fused")
+        s = DistributedLorascECG.build(a, nshards=4, opts=opts,
+                                       dtype=np.float32, inner_tol=5e-4)
+        x, info = s.solve(b)
+        assert _relres(a, x, b) < 1e-5
+        assert info["iters"] < 60, info["iters"]
 
     def test_banded_agg_matches_dense(self, ela_small, rng):
         """Large-separator regime (the reference's MUMPS role,
@@ -232,7 +248,7 @@ class TestDistributedDeflateCorrection:
     def test_deflate_f32_omin_bounded_iterations(self, ela_small, rng):
         """The driver-environment dryrun regime (f32, x64 off in that
         process): deflate-corrected LORASC with the PRODUCTION variant
-        (omin — docs/PERFORMANCE.md round 3: the odir recurrence drifts in
+        (omin — the odir recurrence drifts in
         f32 under this correction) must converge in the deflation-quality
         iteration class, not the drift class. Round-5 incident: path 6 was
         committed with odir_fused and silently ran 4417 iterations in the
@@ -269,8 +285,7 @@ class TestDistributedDeflateCorrection:
 
 
 class TestExactSchurBanded:
-    """Exact-Schur fallback through the BANDED machinery (VERDICT r3 weak
-    #5): S = Agg − Σ Agi Aii⁻¹ Aig assembled sparse from part-local boundary
+    """Exact-Schur fallback through the BANDED machinery: S = Agg − Σ Agi Aii⁻¹ Aig assembled sparse from part-local boundary
     patches and factored block-banded — no ng² dense array at any ng."""
 
     def test_exact_schur_banded_converges(self, ela_small, rng):

@@ -205,8 +205,7 @@ class TestHostRefinedPairs:
         """Host f64 Rayleigh-Ritz refinement of the f32 device pairs
         (round 3): refined vectors are B-orthonormal to f64 accuracy and
         the preconditioner converges at least as fast as with raw f32
-        pairs (docs/PERFORMANCE.md round-3 deflation study: the f32-f64
-        gap is vector noise)."""
+        pairs (the f32-f64 gap is vector noise)."""
         import jax.numpy as jnp
 
         from prealps_tpu.core.generators import elasticity3d
@@ -328,7 +327,7 @@ class TestBalancingDeflation:
         """The round-3 σ-cap causal chain showed f32 σ-LORASC costs ~2.3×
         the f64 iteration count (amplified components vs f32 state). The
         balancing form + omin must track the f64 count: this is the
-        f32-robust production configuration (docs/PERFORMANCE.md round-3/4)."""
+        f32-robust production configuration."""
         from prealps_tpu.core.generators import elasticity3d
         from prealps_tpu.parallel.lorasc_stencil import StencilLorascECG
         from prealps_tpu.solvers import ECGOptions
@@ -355,8 +354,7 @@ class TestBalancingDeflation:
 class TestFactorStore:
     """bf16 banded-factor storage (build_scalable_lorasc factor_store):
     the apply's dominant byte stream halved at a ~3e-3 operator perturbation
-    (measured n=148k het: apply 11.8 -> 8.1 ms, solve 0.99 s/61 it ->
-    0.75 s/64 it — examples/probe_apply_opt.py / probe_bf16_solve.py)."""
+    (n=148k het: 61 -> 64 iterations)."""
 
     def _pair(self):
         from prealps_tpu.core.generators import elasticity3d

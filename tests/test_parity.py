@@ -2,7 +2,7 @@
 (tests/ecg_oracle.py) on the reference's deterministic configs
 (reference: README.md:53-59 — LFAT5 with e=2, elasticity3d with e=4).
 
-Round-4 tightening (VERDICT r3 weak #3): same algebra + same precision +
+Same algebra + same precision +
 same split must agree to ROUNDING, not to a ±15 % band — iteration counts
 are asserted within ±1 and residual histories to 1e-6 relative error over
 the first half-sweep (1e-3 over three quarters; the final approach to the
@@ -170,7 +170,7 @@ class TestElasticityParity:
         _assert_history_tracks(_history(res), oracle["history"])
 
     def test_fused_one_shifted_odir_e4(self, ela_small):
-        """odir_fused is the default TPU formulation; its history must be
+        """odir_fused is the default formulation; its history must be
         the oracle's plain-odir history shifted by exactly one."""
         a = ela_small
         rng = np.random.default_rng(11)
